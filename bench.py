@@ -1,23 +1,37 @@
 #!/usr/bin/env python
-"""Benchmark: RRTMG SW+LW all-sky McICA refresh throughput on one chip.
+"""Benchmark: RRTMG SW+LW all-sky McICA refresh throughput on one GPU.
 
-Prints one JSON line: columns/s/chip on the north-star workload
-(BASELINE.json config 3: all-sky SW+LW, McICA, 72 levels).
+Prints one JSON line: columns/s per device on the north-star workload
+(BASELINE.json config 3: all-sky SW+LW, McICA, 72 levels), with the
+device it ran on. Refuses to run without a GPU, except for the explicit
+BENCH_CPU_MESH rehearsal of --scaling.
 """
 
 import json
+import os
 import time
 
 import numpy as np
 
 
+def device_info(allow_cpu=False):
+    """{platform, kind, count} of the devices JAX runs on; raises unless
+    they are GPUs or allow_cpu is set."""
+    import jax
+    devs = jax.devices()
+    info = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs)}
+    if info["platform"] != "gpu" and not allow_cpu:
+        raise RuntimeError(f"bench.py needs a GPU; JAX found {info}")
+    print(f"# device: {info}")
+    return info
+
+
 def scaling_main():
     """Weak-scaling efficiency over a device mesh (BASELINE config 5
     harness). Fixed columns per device; reports columns/s and efficiency
-    vs the 1-device rate at each mesh size. Runs on the virtual CPU mesh
-    (JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8)
-    or on real TPU slices unchanged."""
-    import os
+    vs the 1-device rate at each mesh size. Runs on the GPUs of one host,
+    or rehearses on a virtual CPU mesh with BENCH_CPU_MESH=<devices>."""
     if os.environ.get("BENCH_CPU_MESH"):
         n = os.environ["BENCH_CPU_MESH"]
         os.environ["JAX_PLATFORMS"] = "cpu"
@@ -27,13 +41,14 @@ def scaling_main():
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
-    from geosradiation_gridcomp_tpu.config import RadiationConfig
-    from geosradiation_gridcomp_tpu.driver.step import radiation_refresh
-    from geosradiation_gridcomp_tpu.parallel.sharding import (
+    from geosradiation_gridcomp.config import RadiationConfig
+    from geosradiation_gridcomp.driver.step import radiation_refresh
+    from geosradiation_gridcomp.parallel.sharding import (
         column_mesh, shard_columns)
     from __graft_entry__ import _example_inputs
 
-    env = __import__("os").environ
+    env = os.environ
+    device = device_info(allow_cpu=bool(env.get("BENCH_CPU_MESH")))
     percol = int(env.get("BENCH_NCOL_PER_DEV", "256"))
     # weak scaling (fixed cols/device) is the real-hardware mode; on the
     # virtual CPU mesh the 8 "devices" share one core pool, so weak
@@ -90,39 +105,7 @@ def scaling_main():
     print(json.dumps({
         "metric": metric,
         "value": rows[-1]["efficiency"],
-        "unit": "fraction", "vs_baseline": rows[-1]["efficiency"] / 0.9,
-        "detail": rows}))
-
-
-def speed_of_light_cols_per_s(nlev=72, hbm_gbps=819.0):
-    """Memory-bandwidth speed-of-light estimate for this workload
-    (BASELINE.json criterion). Counts the per-g-point HBM traffic the
-    current fused design cannot avoid: LW taug+pfracs are written by
-    taumol and read twice by the two rtrnmc sweeps, taucmc written once
-    and read twice (9 cell-passes x 140 g); SW taug+taur (3 passes
-    each), the 3 cloud-optics fields (3 passes), and the 4 stored
-    adding-composites (1 write + 1 read) (26 x 112 g). Everything else
-    (column inputs, flux outputs, coefficients) is O(nlay) per column
-    and negligible. hbm_gbps: v5e HBM2 ~819 GB/s."""
-    lw_bytes = nlev * 140 * 9 * 4
-    sw_bytes = nlev * 112 * (3 * 2 + 3 * 3 + 4 * 2) * 4
-    per_col = lw_bytes + sw_bytes
-    return hbm_gbps * 1e9 / per_col
-
-
-def stages_main():
-    """Per-stage timing (LW full, SW full) so driver-captured benches
-    can attribute regressions without the offline tools."""
-    import subprocess
-    import sys
-    out = subprocess.run(
-        [sys.executable, "tools/profiling/stage_times2.py"],
-        capture_output=True, text=True,
-        cwd=__import__("os").path.dirname(__import__("os").path.abspath(
-            __file__)))
-    print(out.stdout[-4000:])
-    if out.returncode:
-        print(out.stderr[-2000:])
+        "unit": "fraction", "device": device, "detail": rows}))
 
 
 def staged_main():
@@ -131,13 +114,14 @@ def staged_main():
     run_steps_overlapped) vs the serial transfer->compute->block loop,
     streaming distinct host-resident batches through the full refresh."""
     import jax
-    from geosradiation_gridcomp_tpu.config import RadiationConfig
-    from geosradiation_gridcomp_tpu.driver.step import radiation_refresh
-    from geosradiation_gridcomp_tpu.parallel.distributed import (
+    from geosradiation_gridcomp.config import RadiationConfig
+    from geosradiation_gridcomp.driver.step import radiation_refresh
+    from geosradiation_gridcomp.parallel.distributed import (
         run_steps_overlapped)
     from __graft_entry__ import _example_inputs
 
-    env = __import__("os").environ
+    device = device_info()
+    env = os.environ
     ncol = int(env.get("BENCH_NCOL", "4096"))
     nbatch = int(env.get("BENCH_NBATCH", "8"))
     nlev = 72
@@ -173,7 +157,7 @@ def staged_main():
         "metric": "staged_overlap_cols_per_s",
         "value": round(ncol / dt_ov, 1),
         "unit": "columns/s",
-        "vs_baseline": round((ncol / dt_ov) / 1.0e5, 4),
+        "device": device,
         "serial_cols_per_s": round(ncol / dt_serial, 1),
         "overlap_speedup": round(dt_serial / dt_ov, 3),
         "workload": {"ncol": ncol, "nlev": nlev, "nbatch": nbatch}}))
@@ -181,21 +165,22 @@ def staged_main():
 
 def main():
     import jax
-    from geosradiation_gridcomp_tpu.config import RadiationConfig
-    from geosradiation_gridcomp_tpu.driver.step import (radiation_refresh,
+    from geosradiation_gridcomp.config import RadiationConfig
+    from geosradiation_gridcomp.driver.step import (radiation_refresh,
                                                         sw_partition_bounds)
     from __graft_entry__ import _example_inputs
 
-    env = __import__("os").environ
+    device = device_info()
+    env = os.environ
     ncol = int(env.get("BENCH_NCOL", "8192"))
     nlev = 72
     inp = _example_inputs(ncol=ncol, nlev=nlev)
     scene = env.get("BENCH_SCENE", "realistic")
     if scene == "overcast":
-        # every column cloudy at every deck: the clear-block McICA skip
-        # and cloudy-first sort buy nothing; contrast with the default
+        # every column cloudy at every deck: the SW clear-column solver
+        # split (sw_ncld) buys nothing; contrast with the default
         # realistic scene quantifies the clear-column exploitation
-        # (rrtmg_sw_rad.F90:1130-1204's goal, VERDICT r3 next #3)
+        # (rrtmg_sw_rad.F90:1130-1204's goal)
         import jax.numpy as jnp
         fcld = np.clip(np.asarray(inp.fcld) + 0.45, 0.45, 1.0)
         ql = np.maximum(np.asarray(inp.ql), 2e-5)
@@ -239,20 +224,13 @@ def main():
     dt = (time.perf_counter() - t0) / n_iter
 
     cols_per_s = ncol / dt
-    # no published reference throughput exists (BASELINE.md: none published);
-    # vs_baseline reports against a 1e5 columns/s/chip design target.
-    # sol = the memory-bandwidth speed-of-light for this chip/workload
-    # (see speed_of_light_cols_per_s); the gap to it is algorithmic
-    # (gather/compute-bound taumol, VPU-bound McICA), not bandwidth.
-    target = 1.0e5
-    sol = speed_of_light_cols_per_s(nlev)
     fcld = np.asarray(inp.fcld)
     print(json.dumps({
-        "metric": "columns_per_s_per_chip_rrtmg_swlw_allsky",
+        "metric": "columns_per_s_per_device_rrtmg_swlw_allsky",
         "value": round(cols_per_s, 1),
         "unit": "columns/s",
-        "vs_baseline": round(cols_per_s / target, 4),
-        "pct_of_mem_bw_speed_of_light": round(100 * cols_per_s / sol, 2),
+        "device": device,
+        "xla_flags": env.get("XLA_FLAGS", ""),
         "workload": {
             "ncol": ncol, "nlev": nlev,
             "scene": scene,
@@ -266,11 +244,13 @@ def main():
 
 if __name__ == "__main__":
     import sys
+
+    from geosradiation_gridcomp.runtime import use_compile_cache
+    if not os.environ.get("BENCH_CPU_MESH"):
+        use_compile_cache()
     if "--scaling" in sys.argv:
         scaling_main()
     elif "--staged" in sys.argv:
         staged_main()
-    elif "--stages" in sys.argv:
-        stages_main()
     else:
         main()

@@ -24,8 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmg import lw as lwmod
-from geosradiation_gridcomp_tpu.models.rrtmg.sw import rrtmg_sw
+from geosradiation_gridcomp.models.rrtmg import lw as lwmod
+from geosradiation_gridcomp.models.rrtmg.sw import rrtmg_sw
 from profiles import make_profile
 
 SIGMA = 5.670374419e-8
@@ -163,7 +163,7 @@ def test_rrtmg_sw_f32_vs_f64(x64):
 
 
 def test_chou_lw_f32_vs_f64(x64):
-    from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+    from geosradiation_gridcomp.models.chou_lw import chou_lw
     prof = make_profile(ncol=4, nlev=72, seed=5)
     ncol, nlev = prof["ta"].shape
 

@@ -12,11 +12,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
-from geosradiation_gridcomp_tpu.driver.radiation import (solar_refresh,
+from geosradiation_gridcomp.config import RadiationConfig, Scheme
+from geosradiation_gridcomp.driver.radiation import (solar_refresh,
                                                          irrad_refresh)
-from geosradiation_gridcomp_tpu.driver.diagnostics import UNDEF
-from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+from geosradiation_gridcomp.driver.diagnostics import UNDEF
+from geosradiation_gridcomp.models.chou_lw import chou_lw
 from tests.test_driver import make_inputs
 
 NA_CFG = RadiationConfig(outputs=frozenset(

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+from geosradiation_gridcomp.models.chou_lw import chou_lw
 from tests.profiles import make_profile
 
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.chou_sw import chou_sw
+from geosradiation_gridcomp.models.chou_sw import chou_sw
 from tests.profiles import make_profile
 
 

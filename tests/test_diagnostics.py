@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.driver import diagnostics as dg
+from geosradiation_gridcomp.driver import diagnostics as dg
 
 
 def _planck_band_flux(t, wn1_cm, wn2_cm, n=2000):
@@ -40,7 +40,7 @@ def test_brightness_temperature_monotone_in_flux():
 @pytest.fixture(scope="module")
 def driver_inputs():
     import __graft_entry__ as g
-    from geosradiation_gridcomp_tpu.config import RadiationConfig
+    from geosradiation_gridcomp.config import RadiationConfig
     inp = g._example_inputs(ncol=4, nlev=42)
     cfg = RadiationConfig()
     pmid = 0.5 * (np.asarray(inp.ple)[0, 1:] + np.asarray(inp.ple)[0, :-1])
@@ -52,7 +52,7 @@ def test_rats_co2_forcing_positive_at_toa(driver_inputs):
     """Zeroing CO2 must increase OLR: the net-down flux at TOA with CO2
     removed is more negative, so forcing = F_all - F_zeroed > 0 at TOA
     (the classic greenhouse forcing sign)."""
-    from geosradiation_gridcomp_tpu.driver.radiation import irrad_refresh
+    from geosradiation_gridcomp.driver.radiation import irrad_refresh
     inp, cfg, ict, icb = driver_inputs
     rats = dg.rats_refresh(inp, 172.0, cfg, ict, icb, gases=("CO2", "CH4"))
     irr = irrad_refresh(inp, 172.0, cfg, ict, icb)
@@ -69,7 +69,7 @@ def test_rats_co2_forcing_positive_at_toa(driver_inputs):
 
 
 def test_rats_ts_advance_matches_refresh_at_zero_delt(driver_inputs):
-    from geosradiation_gridcomp_tpu.driver.radiation import irrad_refresh
+    from geosradiation_gridcomp.driver.radiation import irrad_refresh
     inp, cfg, ict, icb = driver_inputs
     rats = dg.rats_refresh(inp, 172.0, cfg, ict, icb, gases=("O3",))
     irr = irrad_refresh(inp, 172.0, cfg, ict, icb)
@@ -81,7 +81,7 @@ def test_rats_ts_advance_matches_refresh_at_zero_delt(driver_inputs):
 def test_band_olr_sums_to_total_and_tbr_physical(driver_inputs):
     """Refresh-time band OLR must sum to total OLR; per-band brightness
     temperatures must be physical for an Earth-like column."""
-    from geosradiation_gridcomp_tpu.driver.radiation import (irrad_refresh,
+    from geosradiation_gridcomp.driver.radiation import (irrad_refresh,
                                                              irrad_update)
     inp, cfg, ict, icb = driver_inputs
     irr = irrad_refresh(inp, 172.0, cfg, ict, icb)

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from geosradiation_gridcomp_tpu.config import RadiationConfig, Scheme
-from geosradiation_gridcomp_tpu.driver.radiation import AtmosInputs
-from geosradiation_gridcomp_tpu.driver.step import (radiation_refresh,
+from geosradiation_gridcomp.config import RadiationConfig, Scheme
+from geosradiation_gridcomp.driver.radiation import AtmosInputs
+from geosradiation_gridcomp.driver.step import (radiation_refresh,
                                                     radiation_update)
-from geosradiation_gridcomp_tpu.parallel.sharding import (column_mesh,
+from geosradiation_gridcomp.parallel.sharding import (column_mesh,
                                                           shard_columns)
 from tests.profiles import make_profile
 
@@ -147,7 +147,7 @@ def test_column_sharding_8_devices():
 def test_column_sharding_parity_at_scale():
     """Sharded vs single-device parity at a production-scale batch
     (2048 columns, 256/device): layout/padding/collective bugs that
-    16-column parity cannot see (VERDICT r3 next #7). Uses the bench
+    16-column parity cannot see. Uses the bench
     scene generator so the workload matches the headline bench."""
     from __graft_entry__ import _example_inputs
     assert len(jax.devices()) == 8

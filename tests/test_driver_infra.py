@@ -8,13 +8,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from geosradiation_gridcomp_tpu.config import RadiationConfig
-from geosradiation_gridcomp_tpu.driver.clock import RadiationClock
-from geosradiation_gridcomp_tpu.driver.checkpoint import (save_checkpoint,
+from geosradiation_gridcomp.config import RadiationConfig
+from geosradiation_gridcomp.driver.clock import RadiationClock
+from geosradiation_gridcomp.driver.checkpoint import (save_checkpoint,
                                                           load_checkpoint)
-from geosradiation_gridcomp_tpu.driver.step import (radiation_refresh,
+from geosradiation_gridcomp.driver.step import (radiation_refresh,
                                                     radiation_update)
-from geosradiation_gridcomp_tpu.driver.validate import (validate_inputs,
+from geosradiation_gridcomp.driver.validate import (validate_inputs,
                                                         check_finite)
 from tests.test_driver import make_inputs
 

@@ -1,4 +1,4 @@
-"""181-level and extreme-input regression tests (VERDICT r2 next #8).
+"""181-level and extreme-input regression tests.
 
 The reference supports up to 181 levels (seed-spacing note,
 GEOS_RadiationShared/cloud_subcol_gen.F90:368-371). These tests run the
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmg import lw as lwmod
-from geosradiation_gridcomp_tpu.models.rrtmg.sw import rrtmg_sw
+from geosradiation_gridcomp.models.rrtmg import lw as lwmod
+from geosradiation_gridcomp.models.rrtmg.sw import rrtmg_sw
 from profiles import make_profile
 
 SIGMA = 5.670374419e-8
@@ -100,7 +100,7 @@ def test_rrtmg_sw_181_levels():
 
 
 def test_chou_lw_181_levels():
-    from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+    from geosradiation_gridcomp.models.chou_lw import chou_lw
     ncol, nlev = 2, 181
     prof = make_profile(ncol=ncol, nlev=nlev, seed=13)
     c = lambda v: jnp.full((ncol, nlev), v, jnp.float32)

@@ -30,7 +30,7 @@ FILES = sorted(glob.glob(os.path.join(GOLDEN_DIR, "*.npz")))
 
 def _run_scheme(scheme, inp):
     if scheme == "rrtmg_lw":
-        from geosradiation_gridcomp_tpu.models.rrtmg.lw import rrtmg_lw
+        from geosradiation_gridcomp.models.rrtmg.lw import rrtmg_lw
         return rrtmg_lw(
             *(jnp.asarray(inp[k]) for k in (
                 "ple", "play", "tlay", "tlev", "tsfc", "emis",
@@ -42,7 +42,7 @@ def _run_scheme(scheme, inp):
             cloud_mh=int(inp.get("cloud_mh", 1)),
             cloud_lm=int(inp.get("cloud_lm", 2)))
     if scheme == "rrtmg_sw":
-        from geosradiation_gridcomp_tpu.models.rrtmg.sw import rrtmg_sw
+        from geosradiation_gridcomp.models.rrtmg.sw import rrtmg_sw
         return rrtmg_sw(
             *(jnp.asarray(inp[k]) for k in (
                 "ple", "play", "tlay", "coszen", "albdir_uv",
@@ -53,7 +53,7 @@ def _run_scheme(scheme, inp):
             cloud_mh=int(inp.get("cloud_mh", 1)),
             cloud_lm=int(inp.get("cloud_lm", 2)))
     if scheme == "chou_lw":
-        from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+        from geosradiation_gridcomp.models.chou_lw import chou_lw
         return chou_lw(
             *(jnp.asarray(inp[k]) for k in (
                 "ple", "ta", "wa", "oa", "tb", "ts", "emis", "co2",
@@ -61,7 +61,7 @@ def _run_scheme(scheme, inp):
                 "reff")),
             ict=int(inp["ict"]), icb=int(inp["icb"]))
     if scheme == "chou_sw":
-        from geosradiation_gridcomp_tpu.models.chou_sw import chou_sw
+        from geosradiation_gridcomp.models.chou_sw import chou_sw
         return chou_sw(
             *(jnp.asarray(inp[k]) for k in (
                 "cosz", "ple", "ta", "wa", "oa", "co2", "cwc", "fcld",

@@ -7,7 +7,7 @@ equivalence (cloud_subcol_gen.F90:24-31).
 import numpy as np
 import jax.numpy as jnp
 
-from geosradiation_gridcomp_tpu.ops.mcica import (
+from geosradiation_gridcomp.ops.mcica import (
     generate_stochastic_clouds, clear_counts_three_band, zcw_lookup,
     correlation_length, AAM1, AAM2, AAM30, AAM4)
 

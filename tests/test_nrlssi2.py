@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmg import nrlssi2 as nr
-from geosradiation_gridcomp_tpu.models.rrtmg.tables_sw import sw_tables, NG_SW
+from geosradiation_gridcomp.models.rrtmg import nrlssi2 as nr
+from geosradiation_gridcomp.models.rrtmg.tables_sw import sw_tables, NG_SW
 
 
 def test_cycle_tables_match_module_constants():

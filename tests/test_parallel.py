@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from geosradiation_gridcomp_tpu.parallel.distributed import (
+from geosradiation_gridcomp.parallel.distributed import (
     initialize_distributed, process_local_slice, StagedFeed,
     run_steps_overlapped)
-from geosradiation_gridcomp_tpu.parallel.sharding import (column_mesh,
+from geosradiation_gridcomp.parallel.sharding import (column_mesh,
                                                           shard_columns)
 
 

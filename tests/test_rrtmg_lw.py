@@ -4,7 +4,7 @@ independent Chou-Suarez LW implementation."""
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmg.lw import (
+from geosradiation_gridcomp.models.rrtmg.lw import (
     rrtmg_lw, level_temperatures, mid_heights)
 from tests.profiles import make_profile
 
@@ -115,7 +115,7 @@ def test_clear_counts_consistent(cloudy):
 
 def test_cross_scheme_chou_vs_rrtmg_clear():
     """Two independent LW schemes must agree on clear-sky OLR to ~7 W/m2."""
-    from geosradiation_gridcomp_tpu.models.chou_lw import chou_lw
+    from geosradiation_gridcomp.models.chou_lw import chou_lw
     prof = make_profile(ncol=4, nlev=72, cloudy=False)
     out_r = run_lw(prof)
     emis10 = np.full((4, 10), 0.99, np.float32)

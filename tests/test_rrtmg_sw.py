@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmg.sw import rrtmg_sw
-from geosradiation_gridcomp_tpu.models.rrtmg.lw import mid_heights
+from geosradiation_gridcomp.models.rrtmg.sw import rrtmg_sw
+from geosradiation_gridcomp.models.rrtmg.lw import mid_heights
 from tests.profiles import make_profile
 
 
@@ -104,7 +104,7 @@ def test_night_columns_zero(clear):
 
 def test_cross_scheme_chou_vs_rrtmg_clear():
     """Independent SW schemes agree on clear-sky broadband fluxes."""
-    from geosradiation_gridcomp_tpu.models.chou_sw import chou_sw
+    from geosradiation_gridcomp.models.chou_sw import chou_sw
     prof = make_profile(ncol=4, nlev=72, cloudy=False)
     cosz, alb = 0.7, 0.1
     out_r = run_sw(prof, cosz=cosz, albedo=alb)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmgp import (
+from geosradiation_gridcomp.models.rrtmgp import (
     GasConcs, KDistSW, KDistLW, rrtmgp_sw, rrtmgp_lw,
     sampled_mask_max_ran, sampled_urand_gen_max_ran, draw_samples)
 from tests.profiles import make_profile
@@ -99,7 +99,7 @@ def test_gas_concs_validation():
 
 def _sw_args(prof, cosz=0.7, albedo=0.1):
     ncol, nlev = prof["ta"].shape
-    from geosradiation_gridcomp_tpu.models.rrtmg.lw import mid_heights
+    from geosradiation_gridcomp.models.rrtmg.lw import mid_heights
     ple = prof["ple"]
     play = (0.5 * (ple[:, 1:] + ple[:, :-1]) * 0.01).astype(np.float32)
     zm = np.asarray(mid_heights(play, prof["ta"], ple[:, -1]))
@@ -160,7 +160,7 @@ def test_rrtmgp_lw_clear_sky_matches_rrtmg():
     prof = make_profile(ncol=3, nlev=60, cloudy=False)
     prof["ict"], prof["icb"] = 18, 28
     ncol, nlev = prof["ta"].shape
-    from geosradiation_gridcomp_tpu.models.rrtmg.lw import mid_heights
+    from geosradiation_gridcomp.models.rrtmg.lw import mid_heights
     ple = prof["ple"]
     play = (0.5 * (ple[:, 1:] + ple[:, :-1]) * 0.01).astype(np.float32)
     zm = np.asarray(mid_heights(play, prof["ta"], ple[:, -1]))
@@ -190,7 +190,7 @@ def test_rrtmgp_lw_clear_sky_matches_rrtmg():
 def test_rrtmgp_lw_cloud_reduces_olr():
     prof = make_profile(ncol=3, nlev=60, cloudy=True)
     ncol, nlev = prof["ta"].shape
-    from geosradiation_gridcomp_tpu.models.rrtmg.lw import mid_heights
+    from geosradiation_gridcomp.models.rrtmg.lw import mid_heights
     ple = prof["ple"]
     play = (0.5 * (ple[:, 1:] + ple[:, :-1]) * 0.01).astype(np.float32)
     zm = np.asarray(mid_heights(play, prof["ta"], ple[:, -1]))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.config import (RadiationConfig, Scheme,
+from geosradiation_gridcomp.config import (RadiationConfig, Scheme,
                                                choose_scheme)
 
 
@@ -41,7 +41,7 @@ def test_native_kdist_through_driver(kdist_paths):
     diagnostics come out with nbnd=2, impossible for the 16-band
     RRTMG-backed facade."""
     import __graft_entry__ as g
-    from geosradiation_gridcomp_tpu.driver.step import (
+    from geosradiation_gridcomp.driver.step import (
         radiation_refresh, radiation_update)
     lw_path, sw_path = kdist_paths
     inp = g._example_inputs(ncol=8, nlev=48)
@@ -72,7 +72,7 @@ def test_native_kdist_through_driver(kdist_paths):
 
 
 def test_band_remap_by_wavenumber():
-    from geosradiation_gridcomp_tpu.models.rrtmgp.scheme import \
+    from geosradiation_gridcomp.models.rrtmgp.scheme import \
         _band_remap
     host = np.array([[10.0, 350.0], [350.0, 500.0], [500.0, 2000.0]])
     native = np.array([[10.0, 250.0],      # center 130 -> host 0
@@ -91,7 +91,7 @@ def test_choose_scheme_precedence():
 
 def test_full_refresh_with_rrtmgp_scheme():
     import __graft_entry__ as g
-    from geosradiation_gridcomp_tpu.driver.step import (radiation_refresh,
+    from geosradiation_gridcomp.driver.step import (radiation_refresh,
                                                         radiation_update)
     inp = g._example_inputs(ncol=8, nlev=48)
     cfg = RadiationConfig(sw_scheme=Scheme.RRTMGP,
@@ -115,7 +115,7 @@ def test_rrtmgp_vs_rrtmg_driver_close():
     """The two schemes share k-tables: driver-level OLR and net SW must
     agree to a few W/m^2 (differences: McICA sampling + solar source)."""
     import __graft_entry__ as g
-    from geosradiation_gridcomp_tpu.driver.step import radiation_refresh
+    from geosradiation_gridcomp.driver.step import radiation_refresh
     inp = g._example_inputs(ncol=8, nlev=48)
     pmid = 0.5 * (np.asarray(inp.ple)[0, 1:] + np.asarray(inp.ple)[0, :-1])
     outs = {}

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.models.rrtmgp import gas_optics as go
+from geosradiation_gridcomp.models.rrtmgp import gas_optics as go
 
 NT, NE, NP, NGPT, NBND = 5, 9, 12, 16, 2
 GASES = ["h2o", "co2", "o3"]
@@ -242,11 +242,11 @@ def test_native_kdist_end_to_end_isothermal():
     """KDistLWNative -> rte_lw_native on an isothermal opaque column:
     every flux equals the band-summed Planck source exactly (constant
     pfrac sums to 1 per band; totplnk linear in T)."""
-    from geosradiation_gridcomp_tpu.models.rrtmgp.kdist import (
+    from geosradiation_gridcomp.models.rrtmgp.kdist import (
         KDistLWNative)
-    from geosradiation_gridcomp_tpu.models.rrtmgp.gas_concs import (
+    from geosradiation_gridcomp.models.rrtmgp.gas_concs import (
         GasConcs)
-    from geosradiation_gridcomp_tpu.models.rrtmgp.rte_native import (
+    from geosradiation_gridcomp.models.rrtmgp.rte_native import (
         rte_lw_native)
     data = make_kdist(constant_k=5e-18)    # extremely opaque
     kd = KDistLWNative(data)
@@ -329,7 +329,7 @@ def test_ingest_roundtrip(tmp_path):
 def test_ingest_reversed_layout_and_char_names(tmp_path):
     """The gpt-first (preserved-Fortran-axis-order) file variant and
     NetCDF char-array [n, strlen] gas names must ingest to the SAME npz
-    as the C-order variant (VERDICT r4 next #7; the reference reads
+    as the C-order variant (the reference reads
     this file family at GEOS_SolarGridComp.F90:4609-4621)."""
     h5py = pytest.importorskip("h5py")
     import sys
@@ -460,7 +460,7 @@ def test_minor_contributor_multi_flavor_range():
 
 
 def test_col_dry_absolute_value_and_setcoef_crosscheck():
-    """Pin the molec/cm^2 convention (ADVICE r3 high): a 1013.25 hPa
+    """Pin the molec/cm^2 convention: a 1013.25 hPa
     dry column holds ~2.148e25 molec/cm^2, and column_gas must agree
     with the RRTMG setcoef coldry formula for moist air."""
     plev = jnp.asarray([[101325.0, 0.0]])
@@ -507,8 +507,8 @@ def test_dplankbnd_dts_is_segment_slope():
 
 
 def test_sw_native_night_columns_zeroed():
-    """rte_sw_native zeroes night columns like rrtmg_sw (ADVICE r3)."""
-    from geosradiation_gridcomp_tpu.models.rrtmgp.rte_native import (
+    """rte_sw_native zeroes night columns like rrtmg_sw."""
+    from geosradiation_gridcomp.models.rrtmgp.rte_native import (
         rte_sw_native)
     ncol, nlay, ngpt = 4, 6, NGPT
     taug = jnp.full((ncol, nlay, ngpt), 0.1)

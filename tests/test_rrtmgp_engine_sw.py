@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from geosradiation_gridcomp_tpu.models.rrtmgp.kdist import KDistSWNative
-from geosradiation_gridcomp_tpu.models.rrtmgp.gas_concs import GasConcs
-from geosradiation_gridcomp_tpu.models.rrtmgp.rte_native import (
+from geosradiation_gridcomp.models.rrtmgp.kdist import KDistSWNative
+from geosradiation_gridcomp.models.rrtmgp.gas_concs import GasConcs
+from geosradiation_gridcomp.models.rrtmgp.rte_native import (
     rte_sw_native)
 
 from test_rrtmgp_engine import make_kdist, make_atmos, NGPT, NBND

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.satsim import (cosp_simulator,
+from geosradiation_gridcomp.satsim import (cosp_simulator,
                                                SatsimInputs, SatsimConfig)
 
 

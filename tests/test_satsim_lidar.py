@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.satsim import (lidar_simulator,
+from geosradiation_gridcomp.satsim import (lidar_simulator,
                                                lidar_stats, parasol)
-from geosradiation_gridcomp_tpu.satsim.lidar import (S_CLD, UNDEF,
+from geosradiation_gridcomp.satsim.lidar import (S_CLD, UNDEF,
                                                      _PARASOL_TAU,
                                                      _RLUMA, _RLUMB)
 

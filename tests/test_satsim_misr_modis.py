@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.satsim import (misr_simulator,
+from geosradiation_gridcomp.satsim import (misr_simulator,
                                                modis_l2_simulator,
                                                modis_l3_simulator)
-from geosradiation_gridcomp_tpu.satsim.modis import (PHASE_LIQ, PHASE_ICE,
+from geosradiation_gridcomp.satsim.modis import (PHASE_LIQ, PHASE_ICE,
                                                      PHASE_NONE, R_UNDEF)
 
 

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.satsim import radar as qb
+from geosradiation_gridcomp.satsim import radar as qb
 
 
 def test_mie_small_particle_rayleigh_limit():

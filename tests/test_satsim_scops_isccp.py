@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geosradiation_gridcomp_tpu.satsim import (scops, prec_scops,
+from geosradiation_gridcomp.satsim import (scops, prec_scops,
                                                isccp_simulator)
 
 

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from geosradiation_gridcomp_tpu.satsim.stats import (change_vertical_grid,
+from geosradiation_gridcomp.satsim.stats import (change_vertical_grid,
                                                      csat_vgrid_bounds,
                                                      R_UNDEF)
 
@@ -84,7 +84,7 @@ def test_regrid_conserves_uniform_field():
 
 def test_cosp_driver_stat_grid_shapes():
     import jax
-    from geosradiation_gridcomp_tpu.satsim.cosp import (cosp_simulator,
+    from geosradiation_gridcomp.satsim.cosp import (cosp_simulator,
                                                         SatsimConfig)
     from tests.test_satsim_cosp import scene
     inp = scene.__wrapped__()[0]
@@ -101,14 +101,14 @@ def test_cosp_driver_stat_grid_shapes():
 
 
 def test_stat_grid_lidar_radar_undefined_bins_and_scan_direction():
-    """ADVICE r2 (high): on the stat grid, below-surface bins must be
+    """On the stat grid, below-surface bins must be
     ignored (the reference's sc_ratio = R_UNDEF/R_UNDEF = 1.0 is neither
     cloud nor attenuated, llnl_stats.F90:62-70) and the first-attenuation
     scan must walk top->surface even though the stat grid is
     ground-ascending (llnl_stats.F90:109)."""
     import jax.numpy as jnp
     import numpy as np
-    from geosradiation_gridcomp_tpu.satsim.radar import (
+    from geosradiation_gridcomp.satsim.radar import (
         lidar_only_freq_cloud)
 
     # ground-ascending bins 0..4; bin 0 undefined (sentinel 1.0 /

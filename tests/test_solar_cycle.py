@@ -6,7 +6,7 @@ import sys
 
 import numpy as np
 
-from geosradiation_gridcomp_tpu.driver.solar_cycle import (
+from geosradiation_gridcomp.driver.solar_cycle import (
     SolarCycleData, read_solar_cycle_file)
 
 
@@ -59,7 +59,7 @@ def test_time_interpolation_between_noons():
 def test_isolvar2_consumes_file_indices(tmp_path):
     """The Mg/SB from a cycle file drive isolvar=2 weights, with scon
     honored exactly at each time (rrtmg_sw_rad.F90:1090-1101)."""
-    from geosradiation_gridcomp_tpu.models.rrtmg import nrlssi2 as nr
+    from geosradiation_gridcomp.models.rrtmg import nrlssi2 as nr
     days = np.array([dt.date(2021, 6, 1).toordinal()])
     d = SolarCycleData(days=days, tsi=np.array([1359.2]),
                        mg=np.array([0.158]), sb=np.array([1000.0]))

@@ -23,6 +23,7 @@ source's column-major semantics. Lower bounds other than 1 (e.g. kbo(5,13:59,16)
 are normalized to 0; the original lower bound is recorded in `<name>__lo`.
 """
 
+import os
 import re
 import sys
 import numpy as np
@@ -294,7 +295,8 @@ def extract_file(path: str, only=None, fixed_form=None):
 
 
 REF = "/root/reference"
-OUT = "/root/repo/geosradiation_gridcomp_tpu/data"
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                   "geosradiation_gridcomp", "data")
 
 
 def run_all():

@@ -13,7 +13,7 @@ import numpy as np
 
 REF = "/root/reference/GEOSsatsim_GridComp"
 OUT = os.path.join(os.path.dirname(__file__), "..",
-                   "geosradiation_gridcomp_tpu", "data", "quickbeam.npz")
+                   "geosradiation_gridcomp", "data", "quickbeam.npz")
 
 
 def parse_data_statements(text, names):

@@ -1,6 +1,6 @@
 program golden_driver
 !----------------------------------------------------------------------------
-! Offline golden-data generator for the TPU radiation framework.
+! Offline golden-data generator for the JAX radiation framework.
 !
 ! Calls the reference kernels directly:
 !   rrtmg_lw  (RRTMG/rrtmg_lw/gcm_model/src/rrtmg_lw_rad.F90:15)

@@ -75,7 +75,7 @@ def _scene():
 
 def _derived(inp):
     play = 0.5 * (inp.ple[:, 1:] + inp.ple[:, :-1]) * 0.01   # hPa
-    from geosradiation_gridcomp_tpu.models.rrtmg.lw import (
+    from geosradiation_gridcomp.models.rrtmg.lw import (
         level_temperatures, mid_heights)
     tlev = np.asarray(level_temperatures(play, inp.t, inp.ple * 0.01,
                                          inp.ts))

@@ -13,9 +13,12 @@ Outputs: rrtmg_lw_reduced.npz / rrtmg_sw_reduced.npz with keys
 "bandBB_<name>" (0-based numpy arrays, g axis LAST for all outputs).
 """
 
+import os
+
 import numpy as np
 
-DATA = "/root/repo/geosradiation_gridcomp_tpu/data"
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                    "geosradiation_gridcomp", "data")
 
 # absorption-type tables: reduced with rwgt; raw g axis is LAST
 WEIGHTED_GLAST = {"kao", "kbo", "selfrefo", "forrefo"}

@@ -5,7 +5,7 @@ Usage:  python tools/rrtmgp_ingest.py rrtmgp-gas-lw-g256.nc out_lw.npz
 The reference loads these files at runtime through the external RRTMGP
 library (load_and_init, GEOS_SolarGridComp.F90:4609-4621); this tool
 ingests the same files offline into the plain-array schema consumed by
-geosradiation_gridcomp_tpu.models.rrtmgp.gas_optics (schema documented
+geosradiation_gridcomp.models.rrtmgp.gas_optics (schema documented
 there). RRTMGP coefficient files are NetCDF4/HDF5; h5py reads them
 directly (no netCDF4 dependency).
 
